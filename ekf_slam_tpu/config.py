@@ -83,28 +83,15 @@ class FilterConfig:
     # intended-but-missing IEKF path (ekf_update_iterated.m, SURVEY.md §2.9)
     use_iterated_update: bool = False
     iekf_iterations: int = 3
-    # Fused Pallas covariance-update kernel: "auto" uses it on TPU-class
-    # backends (float32 only), "on"/"off" force it. Default OFF since the
-    # folded XLA tail (ekf.update EKF_TAIL=folded) measured faster in both
-    # parity (5624.8 vs 5171.2) and fast modes (docs/BENCH.md round 2);
-    # the kernel stays for A/B.
-    pallas_update: str = "off"
     # Gain solver for S⁻¹: "cholesky" (exact; sequential triangular work) or
-    # "newton" (Newton-Schulz, pure MXU; ~1e-6 relative accuracy at f32 —
+    # "newton" (Newton-Schulz, pure matmuls; ~1e-6 relative accuracy at f32 —
     # see ekf._spd_inverse_newton)
     gain_solver: str = "cholesky"
     # Share RANSAC's per-slot P Hᵀ columns ((D, CAP, 2), one P-read einsum)
     # with both EKF updates instead of each update re-computing a dense
-    # P @ Hᵀ (engine.step_core). Bit-identical math; a throughput knob
-    # (measured slower than the dense products on v5e — superseded by
-    # fused_step, whose kernels emit the columns from an already-streaming
-    # P pass).
+    # P @ Hᵀ (engine.step_core). Bit-identical math; a throughput knob,
+    # off by default (not measured on the GPU yet).
     share_pht: bool = False
-    # Mega-kernel step (engine.step_fused): the entire per-frame covariance
-    # work in three single-pass Pallas kernels (manage+predict+PHt, LI
-    # tail+PHt, HI tail+feature-init). "auto" = on TPU-class backends at
-    # float32; "on"/"off" force it.
-    fused_step: str = "auto"
     # Covariance storage dtype: "f32" (default; required by the golden
     # 1e-6-equivalence guarantee) or "bf16" — P carried and materialized in
     # bfloat16 with ALL algebra still f32 (upcast fused into reads,
@@ -161,7 +148,7 @@ class RansacConfig:
     """1-point RANSAC (ransac_hypotheses.m).
 
     The reference runs an adaptive sequential loop starting at 1000
-    hypotheses and shrinking via n = log(1-p)/log(1-eps_inlier). On TPU we
+    hypotheses and shrinking via n = log(1-p)/log(1-eps_inlier). Here we
     run a fixed batch of `num_hypotheses` in parallel and take the argmax of
     support — statistically at least as strong as the adaptive loop whenever
     num_hypotheses >= the adaptive count, which holds for the operating
@@ -172,7 +159,7 @@ class RansacConfig:
 
     Do NOT shrink the budget to a shorter run's measured minimum: a fixed
     count must cover the WORST frame of the longest intended sequence.
-    Measured on the bench workload (docs/BENCH.md "NHYP horizon study"):
+    Measured on the bench workload (the NHYP horizon study):
     32 hypotheses track 16-frame sequences but go non-finite at 24 frames,
     while 64 stay clean — one bad association compounds over the
     map-building horizon.
@@ -199,7 +186,7 @@ class VisionConfig:
     # binary-descriptor Hamming match against the init descriptor — the
     # reference's PRIMARY path (matching.m:29-47, FAST+FREAK) and the
     # default here to match it (also the more accurate mode: tracking
-    # err 0.0639 vs 0.092 on the bench workload, docs/BENCH.md r2m);
+    # err 0.0639 vs 0.092 on the bench workload);
     # "ncc" = warped-template NCC scan (the crosscorr.m legacy path,
     # BASELINE.json configs[3]) — the pixels bench keeps BENCH_MATCHER=ncc
     # as its explicit default for cross-round continuity.

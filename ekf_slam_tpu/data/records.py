@@ -2,7 +2,7 @@
 
 The reference serializes COCO-Stuff into 100 tfrecord shards of
 (320x320 image, mask) pairs plus inverse-class-frequency loss weights
-("CALC 2.0"/dataset/gen_tfrecords.py:21,41-167). TPU-native equivalent:
+("CALC 2.0"/dataset/gen_tfrecords.py:21,41-167). Equivalent here:
 compressed .npz shards (no TF dependency) with the same content contract:
 
   images  : (N, H, W, 3) uint8

@@ -81,8 +81,7 @@ class AddParams(NamedTuple):
     """Batched feature-add P growth in closed low-rank form:
     P' = M∘P + EᵀU + UᵀE + EᵀCE (add_a_feature_covariance_inverse_depth.m:
     61-64 for all K candidates at once). Computable from the 13 camera rows
-    of P alone, so the fused HI-tail kernel can apply it in the same pass
-    as the update downdate (ops/pallas_kernels.fused_update_tail_add)."""
+    of P alone."""
     keep_f: jnp.ndarray    # (D,) 0/1 — zeroes the newly-assigned dims
     E: jnp.ndarray         # (6K, D) one-hot rows of the new dims
     U: jnp.ndarray         # (6K, D) new rows (new columns zeroed)
@@ -93,11 +92,7 @@ class AddParams(NamedTuple):
 class ManageParams(NamedTuple):
     """The P-transform of map management (delete + one conversion) in
     closed low-rank form: P' = M∘P + E6ᵀU6 + U6ᵀE6 + E6ᵀC66E6, with
-    M∘ the keep-mask outer product. Consumed either by the XLA apply
-    (`manage`) or fused into the predict mega-kernel
-    (ops/pallas_kernels.fused_manage_predict_pht) so the whole of
-    map_management.m + predict_state_and_covariance.m costs ONE P
-    read + write."""
+    M∘ the keep-mask outer product, applied by `apply_manage_P`."""
     keep_f: jnp.ndarray    # (D,) 0/1 — kept dims (delete + converted slot)
     E6: jnp.ndarray        # (6, D) one-hot rows of the converted slot
     U6: jnp.ndarray        # (6, D) replacement rows (masked)
@@ -215,8 +210,8 @@ def add_features_batch(state: FilterState, uvd: jnp.ndarray,
     # stripes are already zero: fresh slots start zero, deletes zero theirs
     # in manage). Writing them as dynamic_update_slice stripes costs NO
     # full-P pass; the round-1 low-rank dot form (P' = M∘P + EᵀU + UᵀE +
-    # EᵀCE, kept for the fused kernels) paid a full read+write plus a
-    # layout-transpose copy of P on TPU (docs/BENCH.md r2). Row content:
+    # EᵀCE) pays a full read+write plus a layout-transpose copy of P.
+    # Row content:
     # U_k (cross-covariances to old dims; new columns zeroed in U) with
     # the C blocks filled in at every assigned slot's columns — exactly
     # the EᵀU/EᵀCE support, so the results are identical.
@@ -430,16 +425,14 @@ def apply_manage_P(P: jnp.ndarray, p: ManageParams) -> jnp.ndarray:
     conversion. Equivalent to the low-rank form P' = M∘P + E6ᵀU6 + U6ᵀE6
     + E6ᵀC66E6 — the conversion contribution has support exactly on the
     converted slot's rows/cols, and the keep mask zeroes that stripe
-    first, so add == replace. The dot form lowered to full-P layout-
-    transpose copies on TPU (optimized-HLO finding, docs/BENCH.md r2);
-    stripes touch 12/613 of the matrix. When do=False the stripes
-    rewrite the current (masked) values — a no-op by value."""
+    first, so add == replace. The dot form can lower to full-P layout-
+    transpose copies; stripes touch 12/613 of the matrix. When do=False
+    the stripes rewrite the current (masked) values — a no-op by value."""
     if ekf._STRIPES not in ("mgmt", "all"):
         # One stacked dot: EᵀU + UᵀE + EᵀCE = Gᵀ·(Mid·G) with
         # G = [E; U], Mid = [[C, I], [I, 0]] — a single full-P-sized dot
         # output into which the keep-mask pass fuses, instead of two
-        # (D,D) dot outputs plus a layout-transpose copy of contribᵀ
-        # (optimized-HLO finding, docs/BENCH.md round 2).
+        # (D,D) dot outputs plus a layout-transpose copy of contribᵀ.
         k = p.E6.shape[0]
         dt = p.U6.dtype
         eye = jnp.eye(k, dtype=dt)
@@ -464,8 +457,7 @@ def apply_manage_P(P: jnp.ndarray, p: ManageParams) -> jnp.ndarray:
     rowpart = jnp.where(in_s[:, None], p.U6[ri, :], 0.0)
     colpart = jnp.where(in_s[None, :], p.U6.T[:, ri], 0.0)
     # chained single-axis gathers: a 2-D-index gather of shape (D, D)
-    # lowered to a flat-layout monster fusion that DOMINATED the step
-    # (device trace finding, docs/BENCH.md r2)
+    # once lowered to a flat-layout fusion that dominated the step
     diagpart = jnp.where(in_s[:, None] & in_s[None, :],
                          p.C66[ri, :][:, ri], 0.0)
     out = (ekf.p_compute(P) * (p.keep_f[:, None] * p.keep_f[None, :])
@@ -548,14 +540,13 @@ def _convert_params(state: FilterState, cfg: EngineConfig,
 
     # gather the slot's 6 P-rows as a one-hot contraction over the slot
     # axis of the landmark rows' bitcast view. This reads ALL landmark
-    # rows once in natural layout on the MXU (3.6M estimated cycles) —
-    # on par with the previous dynamic_slice, whose per-instance offset
-    # lowers (under vmap) to a batch gather behind a {2,0,1} relayout
-    # copy of P (3.7M cycles, r2d vs r2f HLO dumps); kept because it
-    # frees the relayout copy from the copy budget.
+    # rows once in natural layout as one matmul, where a dynamic_slice's
+    # per-instance offset lowers (under vmap) to a batch gather behind a
+    # relayout copy of P.
     # The one-hot row is exact 0/1, so this is still an exact selection;
-    # precision is pinned so the MXU pass cannot round P's values to
-    # bf16 outside an f32_matmuls scope (the recurring covariance trap).
+    # precision is pinned so the matmul cannot round P's values
+    # (TF32/bf16) outside an f32_matmuls scope (the recurring covariance
+    # trap).
     off = CAM_DIM + 6 * slot
     # one-hot row selector of the slot's 6 dims (zero rows when do=False)
     row_flat = jnp.where(do, CAM_DIM + 6 * slot + jnp.arange(6), D)  # (6,)

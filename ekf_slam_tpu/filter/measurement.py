@@ -247,8 +247,7 @@ def innovation_covariances_from_blocks(top13: jnp.ndarray, Pyy: jnp.ndarray,
     diagonal blocks. This is all of P the per-slot S formula touches, so
     the deferred-update engine path (EKF_DEFER) can feed blocks built
     from the LI update's folded-tail factors instead of a materialized
-    posterior P. The (CAP, 2, k) einsum (aos) forms — measured fastest
-    (docs/BENCH.md r2h)."""
+    posterior P. The (CAP, 2, k) einsum (aos) forms."""
     cap = H_xv.shape[0]
     P11 = top13[:, :CAM_DIM]
     P1y = top13[:, CAM_DIM:CAM_DIM + 6 * cap].reshape(
@@ -263,19 +262,16 @@ def innovation_covariances_from_blocks(top13: jnp.ndarray, Pyy: jnp.ndarray,
 def _slot_diag_blocks(P: jnp.ndarray, cap: int) -> jnp.ndarray:
     """(CAP, 6, 6) diagonal landmark blocks of P.
 
-    A one-hot column selection fused into ONE multiply-reduce pass over
-    the landmark rows' bitcast view — element (c,i,j) sits at row
-    13+6c+i, col 13+6c+j. Two earlier forms both paid full-P relayout
-    copies on TPU (optimized-HLO findings, docs/BENCH.md round 2):
-    2-D-index advanced indexing materialized transposed copies of the
-    whole (6·CAP)² map block, and the round-2 flat-index gather forced a
-    batch-minor {0,1} copy of all of P per call (the gather custom-call
-    wants its vmapped operand batch-minor; ~4.9M estimated cycles each,
-    r2d dump). The iota-compare selector and the multiply both fuse into
-    the reduce, so nothing beyond the (6·CAP, D) row read materializes
-    (the reduce visits each row once per selected column k, so the A/B
-    vs the flat gather is traffic-shape dependent; EKF_SDIAG picks the
-    form: "reduce" | "flatgather")."""
+    A one-hot column selection fused into ONE multiply-reduce pass over the
+    landmark rows' bitcast view — element (c,i,j) sits at row 13+6c+i, col
+    13+6c+j. Two earlier forms both paid full-P relayout copies: 2-D-index
+    advanced indexing materialized transposed copies of the whole (6·CAP)²
+    map block, and the flat-index gather forced a batch-minor copy of all of
+    P per call. The iota-compare selector and the multiply both fuse into
+    the reduce, so nothing beyond the (6·CAP, D) row read materializes (the
+    reduce visits each row once per selected column k, so the A/B vs the
+    flat gather is traffic-shape dependent; EKF_SDIAG picks the form:
+    "reduce" | "flatgather")."""
     D = P.shape[0]
     sdiag = _SDIAG_OVERRIDE[0] or _SDIAG
     if sdiag == "flatgather":
@@ -285,7 +281,7 @@ def _slot_diag_blocks(P: jnp.ndarray, cap: int) -> jnp.ndarray:
         base = (CAM_DIM + 6 * c) * D + CAM_DIM + 6 * c
         return flat[base + ij]
     if sdiag == "dotsel":
-        # Column selection as a batched MXU dot against a CONSTANT
+        # Column selection as a batched dot against a CONSTANT
         # (CAP, 6, D) one-hot selector (loop-invariant, hoisted): reads
         # the landmark rows once in natural layout, no gather relayout.
         # Exact at any matmul precision: the selector is exact 0/1 and
@@ -352,22 +348,6 @@ def innovation_covariances_from_pht(pht3: jnp.ndarray, H_xv: jnp.ndarray,
     return t1 + t2 + R
 
 
-def dense_Ht(H_xv: jnp.ndarray, H_y: jnp.ndarray,
-             row_mask: jnp.ndarray) -> jnp.ndarray:
-    """Transposed dense Jacobian (D, 2·CAP) = dense_H(...).T, built directly
-    in the transposed layout the fused mega-kernels consume (their P·Hᵀ
-    accumulation streams Ht row-blocks), avoiding a materialized transpose
-    of the (2·CAP, D) form."""
-    cap = H_xv.shape[0]
-    dtype = H_xv.dtype
-    m = row_mask.astype(dtype)[:, None, None]
-    Hxv_t = (H_xv * m).reshape(2 * cap, CAM_DIM).T          # (13, 2CAP)
-    eye = jnp.eye(cap, dtype=dtype)
-    Hy_t = jnp.einsum("nj,nck->jknc", eye,
-                      H_y * m).reshape(6 * cap, 2 * cap)    # block-diag ᵀ
-    return jnp.concatenate([Hxv_t, Hy_t], axis=0)
-
-
 @_f32_matmuls
 def pht_slots_rows(P: jnp.ndarray, H_xv: jnp.ndarray,
                    H_y: jnp.ndarray) -> jnp.ndarray:
@@ -393,10 +373,9 @@ def pht_slots(P: jnp.ndarray, H_xv: jnp.ndarray,
     and two short-contraction einsums instead of the dense (D, 2·CAP)
     product (which under f32-accurate matmul precision re-reads P three
     times). Returns (D, 2·CAP) flat slot-major (column 2c+j = slot c,
-    pixel component j): the flat layout keeps the TPU minor dims large —
-    a (D, CAP, 2) result carries a minor dim of 2 that pads to 128 lanes
-    (≈64x HBM blowup whenever it materializes; optimized-HLO finding,
-    docs/BENCH.md round 2) — and column gathers `out[:, cols]` replace
+    pixel component j): the flat layout keeps the minor dim large — a
+    (D, CAP, 2) result carries a minor dim of 2, a poor layout for
+    matmuls and tiled memory — and column gathers `out[:, cols]` replace
     slot gathers with NO transpose. Rows are masked by whatever mask was
     already applied to H_xv/H_y."""
     from ekf_slam_tpu.filter.ekf import p_compute
@@ -415,9 +394,9 @@ def pht_rows_split(P: jnp.ndarray, H_xv: jnp.ndarray,
     """Row-form per-slot gain rows H·P, SPLIT by pixel component:
     returns (hp_u, hp_v), each (CAP, D) with hp_comp[c] = H_{c,comp}·P.
 
-    The TPU-shaped variant of pht_slots/pht_slots_rows: every
+    The row-shaped variant of pht_slots/pht_slots_rows: every
     intermediate is a clean 2-D (CAP, D) array — no (CAP, 2, D) batch
-    (whose (2, D) minor dims tile-pad 4x when materialized) and no
+    (small minor dims) and no
     (D, 2·CAP) transposed assembly. The slot-block contraction
     Σ_j H_y[c,·,j]·P[13+6c+j, :] is unrolled over j as six strided
     MAJOR-dim row slices of P fused with multiply-adds — a single
@@ -450,8 +429,8 @@ def innovation_covariances_from_hp(hp_u: jnp.ndarray, hp_v: jnp.ndarray,
     the slot block a per-row 6-element take_along_axis — so the S gates
     ride the hp rows already computed for RANSAC and the update instead
     of re-reading P's diagonal blocks (the previous flat-index gather
-    materialized TWO full-P-sized reshape/layout copies per frame on
-    TPU). Returns (CAP, 2, 2). H blocks must carry the same mask as the
+    materialized two full-P-sized reshape/layout copies per frame).
+    Returns (CAP, 2, 2). H blocks must carry the same mask as the
     hp rows."""
     cap = H_xv.shape[0]
     cols = (CAM_DIM + 6 * jnp.arange(cap)[:, None]
@@ -500,8 +479,8 @@ def pht_compact_rows(P: jnp.ndarray, H_xv_sel: jnp.ndarray,
     form P Hcᵀ = (Hc P)ᵀ: Hc's support is the 13 camera rows plus the M
     selected slots' 6-row stripes of P, so Hc P is a natural-layout
     partial row read ((13+6M)/D of the matrix) instead of a dense
-    multi-pass P @ Hcᵀ dot (which also paid a full-P layout-transpose
-    copy on TPU — docs/BENCH.md r2). The final transpose is of the small
+    multi-pass P @ Hcᵀ dot (which can also pay a full-P layout-transpose
+    copy). The final transpose is of the small
     (2M, D) product. Identical math; P must be symmetric (it is: every
     producer symmetrizes)."""
     from ekf_slam_tpu.filter.ekf import p_compute

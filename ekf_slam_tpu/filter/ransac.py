@@ -7,11 +7,11 @@ features under xᵢ and count residuals below σ_z
 (compute_hypothesis_support_fast.m:29-45,68-84), keeping the best and
 shrinking the iteration budget via n = log(1−p)/log(ε̂).
 
-TPU re-design: `cfg.ransac.num_hypotheses` hypotheses are drawn and scored
-in parallel (one vmap), and the argmax-support hypothesis wins. For any
-inlier ratio where the reference's own adaptive formula terminates within
-that budget, the fixed batch stochastically dominates the sequential loop
-(it evaluates at least as many independent draws); see
+Fixed-shape re-design: `cfg.ransac.num_hypotheses` hypotheses are drawn and
+scored in parallel (one vmap), and the argmax-support hypothesis wins. For
+any inlier ratio where the reference's own adaptive formula terminates
+within that budget, the fixed batch stochastically dominates the sequential
+loop (it evaluates at least as many independent draws); see
 tests/test_ransac.py::test_fixed_batch_support_matches_sequential.
 
 The support projection follows compute_hypothesis_support_fast exactly:
@@ -34,10 +34,9 @@ from ekf_slam_tpu.ops import quaternion as quat
 
 # Support-scoring layout: "soa" evaluates ALL hypotheses on (CAP, NHYP)
 # structure-of-arrays slices of the (D, NHYP) hypothesis matrix — no
-# intermediate carries a trailing 2/3/6 dim, which under the vmapped
-# form padded to 128 lanes on TPU and materialized GB-scale dot inputs
-# (v @ R_wc inputs are (B,NHYP,CAP,3): 43x HBM blowup — the same
-# padded-minor-dim class as docs/BENCH.md round 2). "vmap" keeps the
+# intermediate carries a trailing 2/3/6 dim (under the vmapped form the
+# v @ R_wc inputs are (B,NHYP,CAP,3) — small-minor-dim arrays that tiled
+# layouts pad many-fold). "vmap" keeps the
 # per-hypothesis form for A/B; test_ransac pins soa == vmap.
 _FORM = os.environ.get("EKF_RANSAC", "soa")
 
@@ -95,8 +94,8 @@ def support_residuals_soa(x_hyps: jnp.ndarray, z: jnp.ndarray,
 
     Same math as support_projection (compute_hypothesis_support_fast.m
     reprojection, q2r / m.m / hu.m / distort_fm.m unrolled per
-    component); every intermediate is (CAP, N) or (N,) — TPU-tile
-    friendly, nothing to pad."""
+    component); every intermediate is (CAP, N) or (N,) — large minor
+    dims, nothing to pad."""
     cap = cartesian.shape[0]
     cam = cfg.camera
     dt = x_hyps.dtype
@@ -198,11 +197,9 @@ def run(x: jnp.ndarray, P: jnp.ndarray, z: jnp.ndarray, h: jnp.ndarray,
         # (D, NHYP) factor computable from the NHYP picked slots' Jacobian
         # blocks alone (H is block-sparse, A one-hot in the slot axis), so
         # the whole hypothesis apply is ONE natural-layout P read with a
-        # 64-wide dot — no (D, 2·CAP) all-slot gain columns. pht_slots
-        # was the single most expensive kernel group in the step (≈30 ms
-        # of 148 by the compiler's own estimated_cycles; r2d HLO dump,
-        # tools/attribute_hlo.py): column-sliced P reads feeding 6-wide
-        # contraction einsums plus (D,CAP,6)/(D,2·CAP) layout copies.
+        # 64-wide dot — no (D, 2·CAP) all-slot gain columns (pht_slots:
+        # column-sliced P reads feeding 6-wide contraction einsums plus
+        # (D,CAP,6)/(D,2·CAP) layout copies).
         apply_picks = None
     else:
         pht2 = measurement.pht_slots(P, H_xv, H_y) if pht is None \
@@ -215,8 +212,7 @@ def run(x: jnp.ndarray, P: jnp.ndarray, z: jnp.ndarray, h: jnp.ndarray,
     # with wₙ = Sₙ⁻¹ νₙ. A (2·CAP, NHYP) scatters each pick's w into its
     # slot's two columns via a one-hot product — the previous per-pick
     # gather of (D, 2) gain columns materialized a (NHYP, D, 2) array
-    # whose minor dim 2 pads to 128 lanes on TPU (64x HBM blowup, the #1
-    # op in the optimized HLO, docs/BENCH.md round 2).
+    # with a minor dim of 2 (a many-fold padded layout on tiled memory).
     nu_p = z[picks] - h[picks]                            # (NHYP, 2)
     w_p = jax.vmap(association._solve_2x2)(S[picks], nu_p)
     onehot = jax.nn.one_hot(picks, cap, dtype=x.dtype)    # (NHYP, CAP)

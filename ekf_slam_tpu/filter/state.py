@@ -20,18 +20,19 @@ capacity:
   ``times_predicted``, ``times_measured``, and ``landmark_id`` (ground-truth
   association handle for the synthetic-scene path; -1 when unused).
 
-The struct is a flax pytree, so it vmaps/shards/checkpoints as data.
+The struct is a pytree (utils/pytree.py), so it vmaps/shards/checkpoints as
+data.
 """
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
 from ekf_slam_tpu.config import CAM_DIM, EngineConfig
+from ekf_slam_tpu.utils import pytree
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class FilterState:
     x: jnp.ndarray                # (D,)
     P: jnp.ndarray                # (D, D)

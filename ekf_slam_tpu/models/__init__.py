@@ -9,5 +9,3 @@
 * loopclosure.py — descriptor database, cosine-similarity retrieval,
                    temporal consistency, loop-constraint emission
 """
-
-from ekf_slam_tpu.models.vss import VSS, VSSConfig  # noqa: F401

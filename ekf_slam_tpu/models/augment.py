@@ -4,7 +4,8 @@
   system and takes the null vector via a batched SVD of the 8x9 matrix. A
   4-point homography is EXACT, so the same H (up to scale) comes from fixing
   h33 = 1 and solving the square 8x8 system — one batched LU solve instead
-  of an SVD, far cheaper on TPU. (SVD would only differ for >4 points.)
+  of an SVD, far cheaper on an accelerator. (SVD would only differ for
+  >4 points.)
 * `hom_warp` (layers.py:28-139): bilinear resampling of the warped [-1,1]
   grid — here a vectorized gather instead of the reference's flattened
   index arithmetic.

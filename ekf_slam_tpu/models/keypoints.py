@@ -6,7 +6,7 @@ arctan of the activation gradient; the local descriptor is the 8-neighbor
 activation-difference stack. That implementation is a host-side NumPy loop
 with dynamic dedup (np.unique) and cv2.KeyPoint construction.
 
-TPU redesign — fixed shapes, no host loops:
+Redesign — fixed shapes, no host loops:
 * `kp_descriptor(c5)` is fully batched: (B, H, W, C) -> exactly
   B x (GRID² x C) keypoints with (y, x), response, orientation and the
   8C-dim neighbor-difference descriptor, computed with vectorized gathers.

@@ -17,7 +17,7 @@ Pipeline per incoming frame (close_kitti_loops.py:100-154):
      measurements (filter/loop_fusion.py), closing the link the reference
      left open (SURVEY.md §1).
 
-TPU redesign: the DB is a fixed-capacity ring buffer so the query is a
+Redesign: the DB is a fixed-capacity ring buffer so the query is a
 static-shape masked matmul; all verification is fixed-hypothesis-count
 RANSAC under vmap.
 """
@@ -27,11 +27,11 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
 from ekf_slam_tpu.models.keypoints import Keypoints, ratio_test_matches
+from ekf_slam_tpu.utils import pytree
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +49,7 @@ class LoopConfig:
     consistency_window: int = 9     # close_kitti_loops.py:115 (W)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class LoopDatabase:
     """Fixed-capacity descriptor/keypoint/pose store."""
     descr: jnp.ndarray        # (N, D)

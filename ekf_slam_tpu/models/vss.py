@@ -1,6 +1,7 @@
 """VSS — Variational Semantic Segmentator (the CALC2 network) in Flax.
 
-Behavior source: "CALC 2.0"/calc2.py:125-243 (`vss()`), re-designed TPU-first:
+Behavior source: "CALC 2.0"/calc2.py:125-243 (`vss()`), re-designed for
+an accelerator:
 
 * Encoder (calc2.py:147-171): a 32-ch 3x3 conv, two 16->32 bottleneck
   residual pairs, then (64,64)/(128,128)/(256,256)/(512,512) conv pairs with
@@ -13,16 +14,17 @@ Behavior source: "CALC 2.0"/calc2.py:125-243 (`vss()`), re-designed TPU-first:
   global L2 normalize.
 * Decoders (calc2.py:217-242): the reference builds 14 INDEPENDENT decoder
   towers (one RGB reconstruction + 13 single-class segmentation heads), each
-  consuming a 4-channel slice of z through four (conv -> depth_to_space x2 ->
-  conv -> conv) stages. Running 14 small towers sequentially wastes the MXU;
-  here they are ONE tower of grouped convolutions (feature_group_count=14),
-  mathematically the same family — each group has private weights and sees
-  only its own z-slice — but launched as single large convs. Per-group
-  depth_to_space is a reshape/transpose on the group-split channel axis.
+  consuming a 4-channel slice of z through four (conv -> depth_to_space x2
+  -> conv -> conv) stages. Running 14 small towers sequentially wastes the
+  matmul units; here they are ONE tower of grouped convolutions
+  (feature_group_count=14), mathematically the same family — each group has
+  private weights and sees only its own z-slice — but launched as single
+  large convs. Per-group depth_to_space is a reshape/transpose on the
+  group-split channel axis.
 
 Dtype policy: parameters live in float32; activations can run in bfloat16
-(`compute_dtype`) for MXU throughput, with normalization statistics and the
-final heads in float32.
+(`compute_dtype`) for tensor-core throughput, with normalization
+statistics and the final heads in float32.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ LATENT_PER_HEAD = 4                # calc2.py:176 — 4*(1+13) latent channels
 class VSSConfig:
     num_classes: int = N_CLASSES
     width: int = 32                 # encoder base width
-    compute_dtype: str = "float32"  # "bfloat16" for MXU fast path
+    compute_dtype: str = "float32"  # "bfloat16" for the fast path
     bn_momentum: float = 0.9997     # calc2.py:133 decay
     bn_epsilon: float = 1e-5
     # Rematerialize each conv block in the backward pass (nn.remat —
@@ -169,13 +171,11 @@ import os as _os
 # Grouped depth_to_space lowering (A/B knob, bit-identical outputs —
 # tests/test_models.py::test_d2s_convt_bit_equals_reshape):
 #   "convt"   — stride-r conv_transpose against a CONSTANT one-hot
-#               kernel: the spatial interleave runs on the MXU and every
-#               tensor stays big-channel NHWC. This is the TPU-safe
-#               form: the reshape form's 7-D transpose materializes
-#               temps whose two minor dims are (r, c_out) — at the
-#               reference training scale (192x256, width 32) stage-4
-#               temps pad 10.7x (504 MB -> 5.3 GB) and the train step
-#               OOMs a 16 GB chip (runs/r3d/queue.log).
+#               kernel: the spatial interleave runs as a matmul and
+#               every tensor stays big-channel NHWC. The reshape form's
+#               7-D transpose materializes temps whose two minor dims
+#               are (r, c_out) — small minor dims that tiled layouts
+#               pad many-fold at the reference training scale.
 #   "reshape" — the plain reshape/transpose pair.
 _D2S = _os.environ.get("VSS_D2S", "convt")
 

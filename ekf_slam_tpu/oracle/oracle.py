@@ -1,13 +1,13 @@
 """A plain-NumPy float64 implementation of the reference MonoSLAM math.
 
-This module is the *golden oracle* for the TPU engine's fidelity tests
+This module is the *golden oracle* for the engine's fidelity tests
 (BASELINE.json: trajectory RMSE <= 1e-6 vs the MATLAB-reference numerics).
 It mirrors the reference equations in their original dynamic-shape form
 (growing state vector, per-feature lists) with explicit inverses where the
-reference uses them, so any divergence in the padded/masked TPU path shows up
+reference uses them, so any divergence in the padded/masked path shows up
 against this.
 
-It is intentionally NOT TPU-idiomatic and NOT a performance path.
+It is intentionally NOT accelerator-idiomatic and NOT a performance path.
 
 Behavior sources: matlab_code/{fv,dfv_by_dxv,func_Q,predict_state_and_covariance,
 update,hinv,hi_inverse_depth,hi_cartesian,calculate_Hi_inverse_depth,

@@ -6,10 +6,10 @@ idiom: a compact state vector that physically grows on feature init
 (add_features_inverse_depth.m:20-23), shrinks on delete
 (delete_a_feature.m:21-25) and reparametrizes on inverse-depth→cartesian
 conversion (inversedepth_2_cartesian.m:37-45), with per-feature records
-mirroring features_info. The padded TPU engine must match this trajectory
+mirroring features_info. The padded engine must match this trajectory
 through ALL stages — map management, predict, association, 1-point RANSAC,
 LI update, HI rescue/update, counters, feature init — to RMSE <= 1e-6
-(tests/test_golden_pipeline.py).
+(tests/test_golden_pipeline.py, chip_smoke.py).
 
 Determinism contract with the engine:
 * discrete decisions (chi^2 / eig gates, RANSAC support) use the engine's
@@ -335,3 +335,136 @@ class OracleSLAM:
             self.recs.append(Rec(slot, int(j)))
         return dict(ic=ic, li=li, hi=hi, visible=visible,
                     support=best_sup)
+
+
+def golden_config() -> EngineConfig:
+    """The float64 golden-comparison setup (tests/test_golden_pipeline.py,
+    chip_smoke.py's oracle phase): CAP=20, full-width updates."""
+    from ekf_slam_tpu.config import (FilterConfig, MapConfig, RansacConfig,
+                                     SimConfig)
+    return EngineConfig(
+        # max_update_obs=0: full-width updates (no inlier truncation) so
+        # the compact gather cannot drop rows the oracle keeps.
+        filter=FilterConfig(),
+        map=MapConfig(capacity=20, min_features_in_image=10,
+                      max_new_per_step=6, max_update_obs=0,
+                      delete_min_predictions=4),
+        ransac=RansacConfig(num_hypotheses=16),
+        # Moderate noise/outliers: with aggressive settings the covariance
+        # legitimately loses PSD within ~20 frames (a property of the
+        # reference EKF math itself — the near-zero initial pose variance
+        # plus strong corrections; both sides reproduce the SAME negative
+        # variance) and then the engine's Cholesky S-solve NaNs where the
+        # reference's explicit inv(S) yields garbage — at which point
+        # "golden comparison" is meaningless. The golden claim is about a
+        # HEALTHY filter.
+        sim=SimConfig(num_landmarks=28, depth_min=2.0, depth_max=6.0,
+                      pixel_noise_std=0.5, outlier_fraction=0.05,
+                      v_init=(0.003, 0.0, 0.005),
+                      w_init=(0.0, 0.002, 0.0),
+                      traj_accel_std=3e-4, traj_alpha_std=3e-4),
+        dtype="float64")
+
+
+def _bootstrap(orc: OracleSLAM, obs_visible0, obs_pixels0):
+    """The oracle side of engine.bootstrap: stage 8 only (feature init from
+    frame 0 with nothing measured)."""
+    cfg = orc.cfg
+    m = cfg.map
+    order = np.argsort(~obs_visible0, kind="stable")
+    for k, j in enumerate(order[: m.max_new_per_step]):
+        if not obs_visible0[j]:
+            continue
+        uvd = obs_pixels0[j]
+        orc.P = oracle.add_feature_covariance_inverse_depth(
+            orc.P, uvd, orc.x[0:13], cfg.filter.sigma_z, m.std_rho,
+            cfg.camera)
+        orc.x = np.concatenate([
+            orc.x, oracle.hinv(uvd, orc.x[0:13], cfg.camera, m.initial_rho)])
+        orc.recs.append(Rec(k, int(j)))
+
+
+def state_rmse(state, orc: OracleSLAM) -> float:
+    """RMSE between an engine state (padded, any dtype) and the oracle's
+    compact state over the camera block and every live feature; inf when
+    the two maps hold different slots (their decisions diverged)."""
+    cam = 13
+    x_e = np.asarray(state.x, np.float64)
+    by_slot = orc.by_slot()
+    if set(np.flatnonzero(np.asarray(state.active))) != set(by_slot):
+        return float("inf")
+    slots = x_e[cam:].reshape(-1, 6)
+    errs = [x_e[:cam] - orc.x[:cam]]
+    for s, i in by_slot.items():
+        v = orc.rec_value(i)
+        errs.append(slots[s][:len(v)] - v)
+    e = np.concatenate(errs)
+    return float(np.sqrt(np.mean(e ** 2)))
+
+
+def compare_with_oracle(cfg: EngineConfig, obs, step_fn, key_fn,
+                        force_convert_at=None):
+    """Run the padded engine and this float64 oracle side by side over a
+    simulated sequence and record where they agree.
+
+    cfg: the ENGINE's configuration (any dtype; the oracle runs it at
+    float64). obs: FrameObs with a leading time axis (T frames; frame 0
+    bootstraps both sides). step_fn(state, obs_t, key) -> (state,
+    StepInfo): the engine step under test (e.g. a jitted engine.step).
+    key_fn(t) -> the RANSAC key of frame t; the oracle draws its picks
+    with the engine's own sample_ic_indices on its ic mask, so equal masks
+    give equal draws. force_convert_at: frame at which both sides shrink
+    the lowest active inverse-depth slot's rho variance, forcing one
+    inverse-depth -> cartesian conversion.
+
+    Returns {"rmse": [per frame 1..T-1], "counts_equal": [per frame],
+    "bootstrap_rmse", "converted", "state", "oracle"}. counts_equal[t] is
+    True when the engine's IC / LI / HI counts and RANSAC support equal
+    the oracle's masks' counts that frame."""
+    import jax
+    import jax.numpy as jnp
+
+    from ekf_slam_tpu.filter import engine, ransac
+    from ekf_slam_tpu.filter.state import init_state
+
+    obs_pixels = np.asarray(obs.pixels, np.float64)
+    obs_visible = np.asarray(obs.visible)
+    T = obs_pixels.shape[0]
+    st = engine.bootstrap(init_state(cfg),
+                          jax.tree.map(lambda a: a[0], obs), cfg)
+    orc = OracleSLAM(cfg.replace(dtype="float64"))
+    _bootstrap(orc, obs_visible[0], obs_pixels[0])
+    out = {"rmse": [], "counts_equal": [], "converted": False,
+           "bootstrap_rmse": state_rmse(st, orc)}
+    for t in range(1, T):
+        key = key_fn(t)
+        if t == force_convert_at:
+            slot = int(np.flatnonzero(np.asarray(st.active)
+                                      & ~np.asarray(st.cartesian))[0])
+            rd = 13 + 6 * slot + 5
+            st = st.replace(P=st.P.at[rd, rd].set(1e-6))
+            off = orc.offset(orc.by_slot()[slot]) + 5
+            orc.P[off, off] = 1e-6
+            out["converted"] = True
+        # oracle inputs: measurements by PRE-manage slot (the engine's
+        # gather_measurements semantics)
+        z_by = {r.slot: obs_pixels[t, r.lm_id] for r in orc.recs}
+        zv_by = {r.slot: bool(obs_visible[t, r.lm_id]) for r in orc.recs}
+
+        def picks_fn(ic_padded, key=key):
+            return np.asarray(ransac.sample_ic_indices(
+                key, jnp.asarray(ic_padded), cfg.ransac.num_hypotheses))
+
+        st, info = step_fn(st, jax.tree.map(lambda a: a[t], obs), key)
+        masks = orc.step(z_by, zv_by, picks_fn, obs_visible[t],
+                         obs_pixels[t])
+        n_ic = int(masks["ic"].sum())
+        out["counts_equal"].append(
+            int(info.n_ic) == n_ic
+            and int(info.n_li) == int(masks["li"].sum())
+            and int(info.n_hi) == int(masks["hi"].sum())
+            and (int(info.ransac_support) == max(int(masks["support"]), 0)
+                 or n_ic == 0))
+        out["rmse"].append(state_rmse(st, orc))
+    out["state"], out["oracle"] = st, orc
+    return out

@@ -1,12 +1,13 @@
 """Multi-chip scaling utilities (SURVEY.md §2.8).
 
 The reference's only parallelism is single-host data parallelism
-(MirroredStrategy, "CALC 2.0"/utils.py:558-559). The TPU-native scaling
-model:
+(MirroredStrategy, "CALC 2.0"/utils.py:558-559). The scaling model
+here:
 
 * **data axis** — filter instances (Monte-Carlo ensembles) and CALC2
   training batches shard over a 1-D `Mesh(("data",))`; gradients and
-  ensemble statistics all-reduce over ICI (XLA-inserted psum).
+  ensemble statistics all-reduce over the interconnect (XLA-inserted
+  psum).
 * **model axis** — reserved in `make_mesh(model=k)` for sharding CALC2
   conv channels if ever needed; the reference has nothing equivalent
   (no TP/PP/SP/EP anywhere — SURVEY.md §2.8), so parity needs only DP.
@@ -14,7 +15,7 @@ model:
 `run_ensemble` is the multi-chip Monte-Carlo evaluator: B filter instances
 sharded over chips, each scanning the same observation sequence with its
 own RNG stream, returning per-instance trajectories plus cross-ensemble
-mean/covariance (one psum over ICI).
+mean/covariance (one psum over the interconnect).
 """
 
 from __future__ import annotations
@@ -69,7 +70,7 @@ def run_ensemble(state_batch, obs_seq, keys, cfg, mesh: Mesh):
     def run(states, obs, ks):
         final, traj, infos = jax.vmap(
             lambda s, k: engine.run_sequence(s, obs, k, cfg))(states, ks)
-        mean = jnp.mean(traj, axis=0)                      # psum over ICI
+        mean = jnp.mean(traj, axis=0)              # psum over the mesh
         dev = traj[..., 0:3] - mean[None, ..., 0:3]
         cov = jnp.einsum("bti,btj->tij", dev, dev) / traj.shape[0]
         return final, traj, mean, cov

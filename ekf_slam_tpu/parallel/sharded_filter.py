@@ -5,8 +5,8 @@ D = 13 + 6*CAP, so capacity scales HBM quadratically — CAP = 4000 is a
 ~2.3 GB float32 P per filter instance, and a batch of them stops fitting
 one chip long before that. The reference never hits this wall because it
 never exceeds ~100 features (and has no parallelism beyond data-parallel
-MirroredStrategy — SURVEY.md §2.8); the TPU-native answer is to shard P's
-ROW axis over the mesh's 'model' axis so per-chip covariance memory is
+MirroredStrategy — SURVEY.md §2.8); the answer here is to shard P's
+ROW axis over the mesh's 'model' axis so per-device covariance memory is
 D*D/k and capacity scales with the mesh.
 
 Design — the "annotate the boundary, let XLA partition" recipe:
@@ -34,7 +34,7 @@ row-slice consumers and votes P replicated.
 
 Verified on the compiled HLO (tests/test_sharded_filter.py asserts it):
 every collective over the mesh is factor-class — O(D * max(2M+8,
-12*max_new, NHYP)) — the covariance itself never crosses ICI.
+12*max_new, NHYP)) — the covariance itself never crosses the interconnect.
 
 Boundary padding: D is ODD (13 + 6*CAP), and jax requires boundary dims
 to divide evenly over their mesh axis, so the sharded state carries
@@ -43,14 +43,12 @@ back to the exact D inside jit (the partitioner handles odd interior
 shapes itself) and re-pads the output with ``jnp.pad`` — NOT with a
 zeros.at[].set, which materializes a full-P all-gather (measured on the
 toy HLO; lax.pad stays shard-local).
-
-The Pallas fused-step kernels are single-device programs and cannot be
-GSPMD-partitioned; ``make_sharded_step`` requires ``fused_step='off'``.
 """
 
 from __future__ import annotations
 
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -120,11 +118,6 @@ def make_sharded_step(cfg: EngineConfig, mesh: Mesh,
     """
     from ekf_slam_tpu.filter import engine, ekf, mapman, measurement
 
-    if engine._use_fused(cfg):
-        raise ValueError(
-            "tensor-parallel step requires fused_step='off': the Pallas "
-            "mega-kernels are single-device programs GSPMD cannot "
-            "partition")
     D, Dp = padded_dim(cfg, mesh.shape[model_axis])
     st_sh = state_shardings(mesh, data_axis, model_axis)
     repl = NamedSharding(mesh, P())
@@ -156,21 +149,44 @@ def make_sharded_step(cfg: EngineConfig, mesh: Mesh,
     return step_b
 
 
+_COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                "collective-permute")
+_OPCODE_RE = re.compile(r"\s([a-z][\w-]*)\(")
+_SHAPE_RE = re.compile(r"\b[a-z]+\d*\[([\d,]*)\]")
+
+
 def collective_inventory(compiled_text: str) -> list[str]:
-    """The collective ops of a compiled HLO, one summary line each — used
-    by tests to assert nothing D×D-sized crosses the mesh."""
+    """The collective ops of a compiled HLO, one line each — used to
+    assert nothing D×D-sized crosses the mesh. Covers the synchronous
+    forms and the async `-start` forms (the `-done` halves repeat them);
+    tuple-typed results included."""
     out = []
     for line in compiled_text.splitlines():
         ls = line.strip()
-        if ls.startswith("%") or ls.startswith("ROOT"):
-            op = ls.split(" = ", 1)
-            if len(op) == 2 and any(
-                    op[1].startswith(c) for c in (
-                        "f32[", "f64[", "bf16[", "s32[", "pred[", "u32[")):
-                body = op[1]
-                name = body.split("(", 1)[0]
-                if any(k in name for k in
-                       ("all-gather", "all-reduce", "reduce-scatter",
-                        "all-to-all", "collective-permute")):
-                    out.append(ls[:160])
+        if not (ls.startswith("%") or ls.startswith("ROOT")):
+            continue
+        parts = ls.split(" = ", 1)
+        m = _OPCODE_RE.search(" " + parts[1]) if len(parts) == 2 else None
+        if m is None:
+            continue
+        opc = m.group(1)
+        if opc.endswith("-done"):
+            continue
+        if any(opc == c or opc == c + "-start" for c in _COLLECTIVES):
+            out.append(ls)
     return out
+
+
+def collective_payload(line: str) -> int:
+    """Largest element count among the shapes of a collective's result
+    type (a tuple-typed async start carries operand and result)."""
+    rhs = line.split(" = ", 1)[1]
+    type_part = rhs[:_OPCODE_RE.search(" " + rhs).start()]
+    best = 0
+    for m in _SHAPE_RE.finditer(type_part):
+        n = 1
+        for d in m.group(1).split(","):
+            if d:
+                n *= int(d)
+        best = max(best, n)
+    return best

@@ -2,9 +2,9 @@
 
 The reference's loop database grows unboundedly on the HOST — a Python
 list appended per frame and rescanned with numpy per query
-(close_kitti_loops.py:106-109). The single-chip TPU redesign is a
+(close_kitti_loops.py:106-109). The single-device redesign is a
 fixed-capacity device ring (models/loopclosure.py) whose size is bounded
-by one chip's HBM: each frame stores a global descriptor plus per-frame
+by one device's memory: each frame stores a global descriptor plus per-frame
 keypoint descriptors (the dominant term — num_kp x kp_dim floats).
 
 This module shards that ring over a mesh axis so capacity scales with

@@ -22,7 +22,6 @@ Monte-Carlo instances.
 
 from __future__ import annotations
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
@@ -30,15 +29,16 @@ from ekf_slam_tpu.config import CAM_DIM, EngineConfig
 from ekf_slam_tpu.filter import motion
 from ekf_slam_tpu.ops import camera as cam_ops
 from ekf_slam_tpu.ops import quaternion as quat
+from ekf_slam_tpu.utils import pytree
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Scene:
     """Static world: ground-truth landmark positions (L, 3)."""
     landmarks: jnp.ndarray
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class FrameObs:
     """One frame of observations, dense over all world landmarks.
 

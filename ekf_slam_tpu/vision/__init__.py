@@ -3,8 +3,8 @@
 The reference leans on compiled MATLAB CV-toolbox primitives —
 detectFASTFeatures / extractFeatures(FREAK) / matchFeatures
 (matching.m:29-47, initialize_a_feature.m:29-54) — and keeps a legacy NCC
-path (crosscorr.m). This package provides TPU-native equivalents as batched
-jnp ops:
+path (crosscorr.m). This package provides fixed-shape equivalents as
+batched jnp ops:
 
 * fast.py       — FAST-16 corner score + non-max suppression
 * descriptor.py — binary intensity-comparison descriptor (FREAK-class)

@@ -7,11 +7,11 @@ Behavior sources:
   with the χ²(2,95%) gate; candidate accepted by descriptor/appearance
   score.
 
-TPU redesign: per-feature dynamic search rectangles (matching.m:21-27)
-become ONE static (2R+1)² search window per feature; positions outside the
-actual χ² ellipse are masked. The NCC over all offsets for all features is
-a batched sliding-window reduction — extracted windows via dynamic slices,
-correlation via einsum on the MXU.
+Fixed-shape redesign: per-feature dynamic search rectangles
+(matching.m:21-27) become ONE static (2R+1)² search window per feature;
+positions outside the actual χ² ellipse are masked. The NCC over all
+offsets for all features is a batched sliding-window reduction — extracted
+windows via dynamic slices, correlation as grouped convolutions.
 """
 
 from __future__ import annotations
@@ -24,26 +24,21 @@ import jax.numpy as jnp
 from ekf_slam_tpu.filter.association import mahalanobis2
 
 # NCC lowering form (A/B knob; see ncc_scores_all): "conv" = grouped
-# VALID convolutions (one MXU pass per feature group on TPU — 82% of the
-# image-path step at HIGHEST precision, docs/BENCH.md r2k), "shift" = t²
-# shift-multiply-adds + integral-image norms — measured WORSE (283.6 vs
-# 393.4 steps/s: the unrolled FMA chain does not fuse into one pass).
-# "plane" (match_all only) = full-image im2col + ONE dense matmul against
-# ALL templates — the frame is unbatched under the instance vmap, so the
-# im2col and the norm planes are built once per frame for the whole batch
-# and the correlation becomes a single (H·W, t²) x (t², B·CAP) MXU dot
-# instead of B·CAP tiny grouped-conv passes.
+# VALID convolutions (the default), "shift" = t² shift-multiply-adds +
+# integral-image norms, "im2col" = one shaped gather + fused
+# multiply-reduce, "plane" (match_all only) = full-image im2col + ONE
+# dense matmul against ALL templates — the frame is unbatched under the
+# instance vmap, so the im2col and the norm planes are built once per
+# frame for the whole batch and the correlation becomes a single
+# (H·W, t²) x (t², B·CAP) dot instead of B·CAP tiny grouped-conv passes.
+# Which form is fastest on the GPU is not measured yet.
 _FORM = os.environ.get("EKF_NCC", "conv")
 
-# Grouped-conv matmul precision. Grayscale NCC in [-1, 1] against a 0.8
-# acceptance threshold does not need 6-pass f32 emulation. The winning
-# setting moved with the operating point: when the warp dominated the
-# step, "high" (3-pass bf16 emulation) measured +9% over "default";
-# after the r2l warp chain made the NCC 61% of the step, "default"
-# (one bf16 pass, ~1e-3 score noise) measures 2,585.9 vs 2,355.6
-# (+9.8%) with tracking err 0.0986 vs 0.0922 — both deep inside the
-# bench gate, so the 1-pass form is the fast-mode default; set
-# EKF_NCC_PREC=high for the tighter scores.
+# Grouped-conv matmul precision. Grayscale NCC in [-1, 1] against a 0.5
+# acceptance threshold does not need full f32 products: "default" (TF32
+# on GPU tensor cores, ~1e-3 score noise) is the default; set
+# EKF_NCC_PREC=highest for f32-exact scores. The pixels bench's tracking
+# gate bounds the effect.
 _PREC = {"highest": jax.lax.Precision.HIGHEST,
          "high": jax.lax.Precision.HIGH,
          "default": jax.lax.Precision.DEFAULT}[
@@ -100,12 +95,10 @@ def ncc_scores_all(windows: jnp.ndarray,
     (the round-1 sliding-gather form tile-padded to ~27 GB at the
     pixels-bench operating point B=64, CAP=100, R=12, t=13).
 
-    EKF_NCC selects the numerator lowering (docs/BENCH.md r2k measured
-    all five on device): "conv" grouped VALID convolution — the DEFAULT
-    and, despite lowering to one MXU pass per feature group, still the
-    fastest; "shift" t² fused FMA chain; "pallas" lane-parallel kernel;
-    "im2col" shaped-gather + fused multiply-reduce. All pinned equal in
-    tests (2e-4, identical argmax)."""
+    EKF_NCC selects the numerator lowering: "conv" grouped VALID
+    convolution — the DEFAULT; "shift" t² fused FMA chain; "im2col"
+    shaped-gather + fused multiply-reduce. All pinned equal in tests
+    (2e-4, identical argmax)."""
     C, t, _ = templates.shape
     n = t * t
     dt = windows.dtype
@@ -139,23 +132,12 @@ def ncc_scores_all(windows: jnp.ndarray,
         sq = _boxsum(windows * windows, t, R2)
         var = jnp.maximum(sq - box * box / n, 0.0)
         return corr / (jnp.sqrt(var + 1e-12) * tnorm[..., None, None])
-    if _FORM == "pallas":
-        from ekf_slam_tpu.ops import pallas_kernels as pk
-        if pk.pallas_supported() or pk._INTERPRET[0]:
-            corr = pk.ncc_corr(windows, tm)             # (C, R2, R2)
-            box = _boxsum(windows, t, R2)
-            sq = _boxsum(windows * windows, t, R2)
-            var = jnp.maximum(sq - box * box / n, 0.0)
-            return corr / (jnp.sqrt(var + 1e-12)
-                           * tnorm[..., None, None])
     if _FORM == "shift":
         # Shift-and-FMA correlation: t² static-slice multiply-adds over
-        # the (C, R2, R2) output — pure fused VPU work. The grouped-conv
-        # form below lowers to one MXU pass PER GROUP on TPU and was 82%
-        # of the whole image-path step (134.6M estimated cycles, pixels
-        # HLO dump, docs/BENCH.md r2k). Per-offset patch sums/norms come
-        # from two integral images (exclusive 2-D prefix sums + four
-        # static slices) instead of box-filter convolutions.
+        # the (C, R2, R2) output — pure fused elementwise work. Per-offset
+        # patch sums/norms come from two integral images (exclusive 2-D
+        # prefix sums + four static slices) instead of box-filter
+        # convolutions.
         corr = jnp.zeros(windows.shape[:-2] + (R2, R2), dt)
         for dy in range(t):
             for dx in range(t):
@@ -268,19 +250,18 @@ def ncc_scores_plane(img: jnp.ndarray, templates: jnp.ndarray,
     """Full-image NCC for all features at once (EKF_NCC=plane).
 
     The windowed forms above evaluate only each feature's (2R+1)² offsets
-    but lower to one tiny MXU pass per feature (grouped conv) or to
-    VPU-bound chains — measured 82% of the whole image-path step
-    (docs/BENCH.md r2k). Here the correlation numerator is computed for
+    but lower to one tiny pass per feature (grouped conv) or to
+    elementwise chains. Here the correlation numerator is computed for
     EVERY valid template anchor of the frame as ONE dense matmul:
 
       im2col(img): (Yv·Xv, t²)   — t² static slices of the SHARED frame;
-      corr = im2col @ tmᵀ:       (Yv·Xv, t²) x (t², C) on the MXU.
+      corr = im2col @ tmᵀ:       (Yv·Xv, t²) x (t², C) matmul.
 
     Under the per-instance vmap the frame operand is unbatched, so XLA
     builds the im2col and the box/variance planes ONCE per frame and the
-    dot batches to (Yv·Xv, t²) x (t², B·C) — full MXU lanes instead of
+    dot batches to (Yv·Xv, t²) x (t², B·C) — one wide matmul instead of
     B·C one-channel passes. ~112x more MACs than the windowed search
-    (70k anchors vs 625 per feature) but >100x better MXU utilization.
+    (70k anchors vs 625 per feature) in exchange for one large matmul.
     Per-feature (2R+1)² score windows are then gathered at the SAME
     clamped anchors as extract_patch_anchored, so the candidate set —
     and hence match_all's output — is identical to the windowed forms.

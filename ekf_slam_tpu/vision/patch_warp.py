@@ -7,11 +7,11 @@ initialization patch is warped into the current view by the homography a
 fronto-parallel plane at the feature induces between the init camera and the
 current camera, then cropped to the 13x13 matching patch.
 
-TPU redesign: the reference warps through per-pixel undistort/rotate/distort
-round trips (rotate_with_dist_fc_c1c2.m:12-17) with interp2. Here the plane
-homography H = K (R − t nᵀ / d) K⁻¹ is composed once per feature in
-UNDISTORTED pixel space, then (default) corrected for lens distortion by
-folding anchor-exact first-order distortion maps into the 3x3
+Fixed-shape redesign: the reference warps through per-pixel
+undistort/rotate/distort round trips (rotate_with_dist_fc_c1c2.m:12-17) with
+interp2. Here the plane homography H = K (R − t nᵀ / d) K⁻¹ is composed once
+per feature in UNDISTORTED pixel space, then (default) corrected for lens
+distortion by folding anchor-exact first-order distortion maps into the 3x3
 (distortion_corrected_homography) so the warp stays ONE batched bilinear
 gather. The reference-faithful per-pixel round trip is kept as
 warp_patch_distorted / predict_appearance(distortion="exact");
@@ -39,13 +39,13 @@ _INV3 = os.environ.get("EKF_WARP_INV", "closed")
 
 # Bilinear sampling form (A/B knob): "gather" = four per-corner gathers
 # from the vmapped patch store (batched-operand gathers relayout);
-# "dot" = one-hot interpolation-weight matrices contracted on the MXU —
+# "dot" = one-hot interpolation-weight matrices contracted as matmuls —
 # out[k] = Wy[k,:] @ patch @ Wx[k,:]ᵀ with Wy/Wx built by iota-compare
 # (2 nonzeros per row), no gather at all. Same 4-term bilinear algebra.
-# DEFAULT "dot": measured 2410.8 vs 773.2 steps/s on the pixels bench
-# (3.1x — the batched-operand gathers were the warp's real cost), with
-# identical tracking error (0.0922 vs 0.0934) — the MXU contraction's
-# TPU-default-bf16 passes do not degrade matching (docs/BENCH.md r2l).
+# DEFAULT "dot" (the batched-operand gathers were the warp's real cost
+# where it was chosen; not re-measured on the GPU), with the same
+# tracking error as "gather" (0.0922 vs 0.0934) — reduced-precision
+# default matmul passes do not degrade matching.
 _SAMPLE = os.environ.get("EKF_WARP_SAMPLE", "dot")
 
 

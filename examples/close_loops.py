@@ -57,6 +57,8 @@ def main():
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from ekf_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from ekf_slam_tpu.io import ImageSequence
     from ekf_slam_tpu.io.poses import (load_kitti_poses, poses_to_rq,

@@ -156,12 +156,14 @@ def main():
                          "different corruptions); the filter's tracking "
                          "input stays clean so the stress isolates the "
                          "retrieval stage (models/augment.py)")
-    ap.add_argument("--out", default="/tmp/loop_demo")
+    ap.add_argument("--out", default="runs/loop_demo")
     ap.add_argument("--json", default="")
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from ekf_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from ekf_slam_tpu.config import EngineConfig, MapConfig, SimConfig
     from ekf_slam_tpu.filter import engine, loop_fusion

@@ -60,6 +60,8 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from ekf_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from ekf_slam_tpu.config import EngineConfig, MapConfig, SimConfig
     from ekf_slam_tpu.filter import engine

@@ -47,6 +47,8 @@ def main():
     import jax
     if args.cpu or jax.device_count() < args.model:
         jax.config.update("jax_platforms", "cpu")
+    from ekf_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import jax.numpy as jnp
 
     from ekf_slam_tpu.config import (EngineConfig, FilterConfig, MapConfig,
@@ -60,7 +62,6 @@ def main():
     n_data = args.data or max(1, jax.device_count() // args.model)
     mesh = make_mesh(data=n_data, model=args.model)
     cfg = EngineConfig(
-        filter=FilterConfig(fused_step="off"),
         map=MapConfig(capacity=args.cap,
                       min_features_in_image=min(20, args.cap // 2),
                       max_new_per_step=min(20, args.cap // 2)),

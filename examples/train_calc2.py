@@ -32,6 +32,8 @@ def main():
     args = ap.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from ekf_slam_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from jax.sharding import Mesh
     from ekf_slam_tpu.data import synthetic_batch

@@ -2,7 +2,7 @@
 //
 // The reference's IO layer is matlab_code/takeImage.m (imread of a
 // '%s%04d.pgm' sequence, first channel) and takeImageFromAvi.m — compiled
-// MATLAB primitives. This is the TPU-framework equivalent: a C++ loader
+// MATLAB primitives. This is the framework's equivalent: a C++ loader
 // that parses P2/P5 PGM and P3/P6 PPM, normalizes to float32 [0,1]
 // grayscale, and prefetches frames on background threads so host IO
 // overlaps device compute (double-buffered, like an input pipeline).

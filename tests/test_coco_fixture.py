@@ -1,4 +1,4 @@
-"""Executed contract for the COCO-Stuff adapter (VERDICT r2 missing #1).
+"""Executed contract for the COCO-Stuff adapter.
 
 Builds a miniature COCO-Stuff-format dataset IN-TEST — two small PNG
 images and annotations covering all three segmentation encodings

@@ -106,7 +106,7 @@ def test_val_shards_embedded_eval_pairs(tmp_path):
     """write_val_shards/load_eval_pairs round trip + evaluate_pairs on
     the reloaded pairs equals evaluating the in-memory arrays — the
     shard-embedded-eval contract of gen_tfrecords.py:81-88,147-149
-    (VERDICT r2 missing #4)."""
+    """
     import jax
     import jax.numpy as jnp
     from ekf_slam_tpu.data.records import load_eval_pairs, write_val_shards

@@ -1,4 +1,4 @@
-"""Multi-step golden-trajectory fidelity: padded TPU engine vs the float64
+"""Multi-step golden-trajectory fidelity: padded engine vs the float64
 dynamic-shape oracle (BASELINE.json: trajectory RMSE <= 1e-6).
 
 The oracle mirrors the reference equations verbatim (explicit inv(S),

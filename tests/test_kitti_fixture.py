@@ -1,6 +1,6 @@
 """Miniature KITTI-format sequence fixture, executed end to end FROM DISK.
 
-VERDICT-r3 #5: the reference's online loop runner consumes an image
+The reference's online loop runner consumes an image
 directory + a KITTI VO pose file (close_kitti_loops.py:78-106, takeImage.m
 :1-4); until now this framework's analog ran only on in-memory arrays.
 Here a rendered miniature sequence (PGM frames + 12-float pose rows) is

@@ -1,9 +1,9 @@
 """Unit equivalence of the round-2 layout-driven rewrites.
 
-Each rewrite replaced a TPU-hostile materialization (small-minor-dim
-gather/concat/transpose) with a layout-friendly form (docs/BENCH.md
-round 2). These tests pin the forms to their naive references directly,
-in addition to the end-to-end suites.
+Each rewrite replaced a layout-hostile materialization (small-minor-dim
+gather/concat/transpose) with a layout-friendly form. These tests pin the
+forms to their naive references directly, in addition to the end-to-end
+suites.
 """
 
 import jax
@@ -305,83 +305,6 @@ def test_ransac_soa_support_matches_vmap_projection():
     res2_ref = jax.vmap(one, in_axes=1, out_axes=1)(x_hyps)
     np.testing.assert_allclose(np.asarray(res2_soa), np.asarray(res2_ref),
                                rtol=1e-9, atol=1e-9)
-
-
-def test_update_rows_pallas_tail_apply_matches_xla(monkeypatch):
-    """EKF_TAIL_APPLY=pallas (ops/pallas_kernels.corr_apply, interpret
-    mode) equals the XLA P + AtᵀBt apply in update_rows — float32, both
-    f32 and bf16 covariance storage."""
-    from ekf_slam_tpu.filter import ekf
-    from ekf_slam_tpu.ops import pallas_kernels as pk
-    monkeypatch.setattr(pk, "_CORR_PREC", "highest")
-    cap = 4
-    D = CAM_DIM + 6 * cap
-    M = 6
-    P = _rand_spd(jax.random.key(70), D).astype(jnp.float32)
-    H = (jax.random.normal(jax.random.key(71), (M, D), jnp.float32) * 0.3)
-    z = jax.random.normal(jax.random.key(72), (M,), jnp.float32) * 0.05
-    h = jnp.zeros((M,), jnp.float32)
-    x = jax.random.normal(jax.random.key(73), (D,), jnp.float32)
-    x = x.at[3:7].set(x[3:7] / jnp.linalg.norm(x[3:7]) * 1.02)
-    mask = jnp.arange(M) < 5
-    r = jnp.ones((M,), jnp.float32)
-    for store in (jnp.float32, jnp.bfloat16):
-        Ps = P.astype(store)
-        HP = (H * mask[:, None].astype(H.dtype)) @ ekf.p_compute(Ps)
-        monkeypatch.setattr(ekf, "_TAIL_APPLY", "xla")
-        x_ref, P_ref = ekf.update_rows(x, Ps, H, HP, z, h, mask, r)
-        monkeypatch.setattr(ekf, "_TAIL_APPLY", "pallas")
-        pk._INTERPRET[0] = True
-        try:
-            x_got, P_got = ekf.update_rows(x, Ps, H, HP, z, h, mask, r)
-        finally:
-            pk._INTERPRET[0] = False
-        assert P_got.dtype == store
-        np.testing.assert_allclose(np.asarray(x_got), np.asarray(x_ref),
-                                   rtol=1e-6, atol=1e-6)
-        tol = 1e-6 if store == jnp.float32 else 1e-2
-        np.testing.assert_allclose(
-            np.asarray(P_got, np.float32), np.asarray(P_ref, np.float32),
-            rtol=tol, atol=tol)
-
-
-def test_update_cols_pallas_tail_apply_matches_xla(monkeypatch):
-    """EKF_TAIL_APPLY=pallas on the COLS folded tail (corr_apply_cols,
-    interpret mode) matches the XLA apply — float32, f32 and bf16 P."""
-    from ekf_slam_tpu.filter import ekf
-    from ekf_slam_tpu.ops import pallas_kernels as pk
-    monkeypatch.setattr(pk, "_CORR_PREC", "highest")
-    cap = 4
-    D = CAM_DIM + 6 * cap
-    M = 6
-    P = _rand_spd(jax.random.key(80), D).astype(jnp.float32)
-    P = 0.5 * (P + P.T)
-    H = (jax.random.normal(jax.random.key(81), (M, D), jnp.float32) * 0.3)
-    z = jax.random.normal(jax.random.key(82), (M,), jnp.float32) * 0.05
-    h = jnp.zeros((M,), jnp.float32)
-    x = jax.random.normal(jax.random.key(83), (D,), jnp.float32)
-    x = x.at[3:7].set(x[3:7] / jnp.linalg.norm(x[3:7]) * 1.02)
-    mask = jnp.arange(M) < 5
-    r = jnp.ones((M,), jnp.float32)
-    for store in (jnp.float32, jnp.bfloat16):
-        Ps = P.astype(store)
-        monkeypatch.setattr(ekf, "_TAIL_APPLY", "xla")
-        x_ref, P_ref = ekf.update(x, Ps, H, z, h, mask, r)
-        monkeypatch.setattr(ekf, "_TAIL_APPLY", "pallas")
-        pk._INTERPRET[0] = True
-        try:
-            x_got, P_got = ekf.update(x, Ps, H, z, h, mask, r)
-        finally:
-            pk._INTERPRET[0] = False
-        assert P_got.dtype == store
-        np.testing.assert_allclose(np.asarray(x_got), np.asarray(x_ref),
-                                   rtol=1e-6, atol=1e-6)
-        tol = 1e-5 if store == jnp.float32 else 1e-2
-        np.testing.assert_allclose(
-            np.asarray(P_got, np.float32), np.asarray(P_ref, np.float32),
-            rtol=tol, atol=tol)
-        g = np.asarray(P_got, np.float32)
-        assert np.array_equal(g, g.T)
 
 
 def test_innovation_covariances_soa_matches_aos(monkeypatch):

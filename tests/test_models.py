@@ -322,9 +322,9 @@ def test_remat_bit_equivalent():
 
 
 def test_d2s_convt_bit_equals_reshape(monkeypatch):
-    """The MXU one-hot conv_transpose depth-to-space (VSS_D2S=convt, the
-    TPU-safe default — the reshape form's 7-D transpose pads 10.7x and
-    OOMs the reference-scale train step, runs/r3d) is a bit-exact
+    """The one-hot conv_transpose depth-to-space (VSS_D2S=convt, the
+    default — the reshape form's 7-D transpose materializes small-minor-
+    dim temps at the reference training scale) is a bit-exact
     rearrangement."""
     from ekf_slam_tpu.models import vss as vss_mod
 

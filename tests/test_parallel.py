@@ -55,7 +55,7 @@ def test_run_ensemble_8dev_equals_1dev():
     """Cross-device correctness: the SAME ensemble on an 8-device mesh and
     on a single-device mesh must agree (the sharding must be semantically
     invisible) — regression-tests what the driver's dryrun only
-    smoke-tests (VERDICT r1 weak #5)."""
+    smoke-tests."""
     cfg = EngineConfig(
         map=MapConfig(capacity=16, min_features_in_image=8,
                       max_new_per_step=8),
@@ -222,7 +222,7 @@ def test_loop_runner_sharded_db_equals_unsharded():
 
 
 def test_dp_per_step_body_has_no_collectives():
-    """DP-scaling efficiency pin (VERDICT r2 #8): ensemble instances are
+    """DP-scaling efficiency pin: ensemble instances are
     independent, so the compiled data-parallel per-step program must
     contain NO cross-device collectives — all communication belongs to
     the post-run ensemble statistics (mean/cov), not the SLAM steps.

@@ -1,7 +1,7 @@
 """1-point RANSAC tests: sampling, support kernel, fixed-batch equivalence.
 
 The reference runs a sequential adaptive loop (ransac_hypotheses.m:14-46,
-n = log(1-p)/log(1-eps)); the TPU engine scores a fixed batch of hypotheses
+n = log(1-p)/log(1-eps)); the engine scores a fixed batch of hypotheses
 in parallel and takes argmax support. These tests pin (a) the support
 projection against a NumPy reference, (b) that sampling only draws IC
 slots, and (c) that the fixed batch recovers the inlier set at least as

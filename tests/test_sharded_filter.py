@@ -3,17 +3,14 @@ single-device path on an 8-virtual-device ('data' x 'model') mesh, plus
 the HLO guarantee that no D x D tensor ever crosses the mesh.
 
 The reference has no model parallelism anywhere (SURVEY.md §2.8); this is
-the TPU-native capacity-scaling path (parallel/sharded_filter.py).
+the capacity-scaling path (parallel/sharded_filter.py).
 """
-
-import re
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ekf_slam_tpu.config import (EngineConfig, FilterConfig, MapConfig,
-                                 SimConfig)
+from ekf_slam_tpu.config import EngineConfig, MapConfig, SimConfig
 from ekf_slam_tpu.filter import engine
 from ekf_slam_tpu.filter.state import init_state
 from ekf_slam_tpu.parallel import sharded_filter as sf
@@ -23,7 +20,6 @@ from ekf_slam_tpu.sim import scene as sim_scene
 
 def tp_cfg():
     return EngineConfig(
-        filter=FilterConfig(fused_step="off"),
         map=MapConfig(capacity=12, min_features_in_image=6,
                       max_new_per_step=6),
         sim=SimConfig(num_landmarks=16),
@@ -110,10 +106,8 @@ def test_tp_step_collectives_stay_small():
     limit = b_local * Dp * factor_rows
     assert limit < b_local * Dp * D, "bound must stay below full-P size"
     for line in colls:
-        m = re.search(r"\w+\[([\d,]*)\]", line)
-        dims = [int(d) for d in m.group(1).split(",") if d] if m else []
-        payload = int(np.prod(dims)) if dims else 0
-        assert payload <= limit, f"covariance-sized collective: {line}"
+        assert sf.collective_payload(line) <= limit, \
+            f"covariance-sized collective: {line}"
 
 
 def test_tp_step_pure_model_mesh():

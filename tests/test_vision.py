@@ -425,7 +425,7 @@ def test_describe_many_flat_form_equivalent():
 
 
 def test_describe_windows_matches_direct_form():
-    """describe_windows (per-slot region + one-hot MXU extraction) is
+    """describe_windows (per-slot region + one-hot matmul extraction) is
     bit-identical to describe_presmoothed at the equivalent absolute
     candidate positions — including window anchors clipped at every
     border and candidates at window corners."""
@@ -531,7 +531,7 @@ def test_match_descriptor_chain_window_form_equivalent():
 
 def test_describe_regions_flat_form_equivalent():
     """EKF_REGEXTRACT=flat (take_along_axis from the compact per-slot
-    region stack) is bit-identical to the one-hot MXU contraction form,
+    region stack) is bit-identical to the one-hot matmul contraction form,
     including border-clipped candidates."""
     from ekf_slam_tpu.vision import descriptor as ds
     rng = np.random.default_rng(31)

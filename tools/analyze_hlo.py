@@ -1,61 +1,36 @@
-"""Rank ops in a dumped optimized TPU HLO by PADDED buffer size.
+"""Rank the ops of a compiled HLO dump by buffer size.
 
-TPU arrays tile the two minor physical dims to (8,128) (f32; (16,128)
-bf16); a logical f32[512,100,2,2] with layout {3,2,1,0} pads 2x2 ->
-8x128 — a 256x blowup. This script parses `compiled.as_text()` output
-(tools-dumped, e.g. /tmp/bench_step.hlo), computes logical vs padded
-bytes per op from the layout annotation, and aggregates:
+Parses `compiled.as_text()` output (e.g. the hlo.txt that
+tools/profile_sim.py writes), sums the logical bytes of each op's result
+by (dtype, shape, layout, opcode), and prints
+the largest groups — where the program materializes its big arrays (full
+covariance copies, layout transposes, gathers):
 
-  python tools/analyze_hlo.py /tmp/bench_step.hlo [--top 40]
+  python tools/analyze_hlo.py /path/to/step.hlo [--top 40] [--min-mb 1]
 
-Columns: padded MB, logical MB, blowup, count, shape{layout}, example op
-name. Use it to find where XLA's layout choice wastes HBM traffic on
-small-trailing-dim arrays (docs/BENCH.md round-2 methodology).
+The GPU keeps arrays unpadded, so these are the bytes the program moves
+when it writes the buffer once.
 """
 
 import argparse
 import re
-import sys
 from collections import defaultdict
 
-# f32[512,100,2,2]{3,2,1,0:T(8,128)...}  or  bf16[...]{...}
+# f32[512,100,2,2]{3,2,1,0}  or  bf16[...]{...}
 SHAPE_RE = re.compile(
     r"\b(f64|f32|bf16|f16|s32|u32|s8|u8|pred|s64|u64)"
     r"\[([0-9,]*)\]"
-    r"(?:\{([0-9,]+)(?::T\(([0-9,()]+)\))?[^}]*\})?")
+    r"(?:\{([0-9,]+)[^}]*\})?")
 
 BYTES = {"f64": 8, "s64": 8, "u64": 8, "f32": 4, "s32": 4, "u32": 4,
          "bf16": 2, "f16": 2, "s8": 1, "u8": 1, "pred": 1}
 
 
-def padded_elems(dims, minor_to_major, tile):
-    """Physical element count after tiling the minor dims."""
-    if not dims:
-        return 1
-    if not minor_to_major:
-        minor_to_major = list(range(len(dims)))[::-1]
-    # Physical order: major..minor = reversed(minor_to_major)
-    phys = [dims[i] for i in reversed(minor_to_major)]
-    if not tile:
-        tile = (8, 128)
-    t = list(tile)
-    # Pad the last len(t) physical dims up to tile multiples.
-    n = 1
-    for i, d in enumerate(phys):
-        k = len(phys) - i
-        if k <= len(t):
-            tt = t[len(t) - k]
-            d = -(-d // tt) * tt
+def logical_bytes(dtype, dims):
+    n = BYTES.get(dtype, 4)
+    for d in dims:
         n *= d
     return n
-
-
-def parse_tile(s):
-    if not s:
-        return None
-    # "8,128" or "8,128)(2,1" (nested second tile for bf16) — first group.
-    first = s.split(")(")[0]
-    return tuple(int(x) for x in first.split(",") if x)
 
 
 def main():
@@ -65,56 +40,30 @@ def main():
     ap.add_argument("--min-mb", type=float, default=1.0)
     args = ap.parse_args()
 
-    agg = defaultdict(lambda: [0.0, 0.0, 0, ""])  # padded, logical, count
+    agg = defaultdict(lambda: [0.0, 0, ""])  # MB, count, example name
     for line in open(args.hlo):
         line = line.strip()
-        if not ("=" in line and ("fusion" in line or "copy" in line
-                                 or "convolution" in line or "dot" in line
-                                 or "custom-call" in line
-                                 or "all-reduce" in line
-                                 or "dynamic-update-slice" in line
-                                 or "scatter" in line or "gather" in line
-                                 or "transpose" in line
-                                 or "broadcast" in line or "pad" in line
-                                 or "concatenate" in line
-                                 or "reduce" in line or "select" in line
-                                 or "convert" in line or "add" in line
-                                 or "multiply" in line or "iota" in line)):
+        if " = " not in line:
             continue
-        name = line.split(" = ")[0].strip()
-        m = SHAPE_RE.search(line.split(" = ", 1)[-1])
+        name, rhs = line.split(" = ", 1)
+        m = SHAPE_RE.search(rhs)
         if not m:
             continue
-        dt, dims_s, mtm_s, tile_s = m.groups()
+        dt, dims_s, mtm_s = m.groups()
         dims = [int(x) for x in dims_s.split(",") if x] if dims_s else []
-        mtm = [int(x) for x in mtm_s.split(",")] if mtm_s else None
-        tile = parse_tile(tile_s)
-        b = BYTES.get(dt, 4)
-        logical = b
-        for d in dims:
-            logical *= d
-        padded = b * padded_elems(dims, mtm, tile)
-        opkind = line.split(" = ", 1)[-1]
-        opkind = SHAPE_RE.sub("", opkind, count=1).strip().split("(")[0]
-        key = (dt, tuple(dims), tuple(mtm) if mtm else None, opkind)
-        ent = agg[key]
-        ent[0] += padded / 1e6
-        ent[1] += logical / 1e6
-        ent[2] += 1
-        ent[3] = name
+        mtm = tuple(int(x) for x in mtm_s.split(",")) if mtm_s else None
+        opkind = SHAPE_RE.sub("", rhs, count=1).strip().split("(")[0]
+        ent = agg[(dt, tuple(dims), mtm, opkind)]
+        ent[0] += logical_bytes(dt, dims) / 1e6
+        ent[1] += 1
+        ent[2] = name.strip()
     rows = sorted(agg.items(), key=lambda kv: -kv[1][0])
-    tot_p = sum(v[0] for v in agg.values())
-    tot_l = sum(v[1] for v in agg.values())
-    print(f"TOTAL padded {tot_p:.0f} MB, logical {tot_l:.0f} MB "
-          f"(blowup {tot_p / max(tot_l, 1e-9):.2f}x)")
-    print(f"{'padMB':>9} {'logMB':>9} {'blow':>6} {'n':>4}  shape/layout/op")
-    shown = 0
-    for (dt, dims, mtm, opkind), (p, l, n, name) in rows:
-        if p < args.min_mb or shown >= args.top:
-            continue
-        shown += 1
-        print(f"{p:9.1f} {l:9.1f} {p / max(l, 1e-9):6.1f} {n:4d}  "
-              f"{dt}[{','.join(map(str, dims))}]"
+    print(f"TOTAL {sum(v[0] for v in agg.values()):.0f} MB of op results")
+    print(f"{'MB':>9} {'n':>4}  shape/layout/op")
+    for (dt, dims, mtm, opkind), (mb, n, name) in rows[:args.top]:
+        if mb < args.min_mb:
+            break
+        print(f"{mb:9.1f} {n:4d}  {dt}[{','.join(map(str, dims))}]"
               f"{{{','.join(map(str, mtm)) if mtm else '-'}}} "
               f"{opkind[:40]}  e.g.{name[:40]}")
 

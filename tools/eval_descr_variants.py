@@ -9,7 +9,7 @@ at PR-AUC 0.7+ (random conv features are a usable pooled representation),
 a cheap untrained A/B of the head variants directly measures each head's
 separation CEILING before committing a training run to the winner.
 
-Runs on CPU by default (forward-only, tiny model); --tpu opts in.
+Runs on CPU by default (forward-only, tiny model); --gpu opts in.
 
 Protocol mirrors examples/calc2_bundled_run.eval_places: memory = clean
 aliased_places render, live = eval_view homography+illumination revisit,
@@ -28,7 +28,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax  # noqa: E402
 
-if "--tpu" not in sys.argv:
+if "--gpu" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
@@ -51,7 +51,7 @@ def main():
     ap.add_argument("--severity", type=float, default=0.0)
     ap.add_argument("--variants", default=",".join(VARIANTS))
     ap.add_argument("--out", default="runs/descr_variants.json")
-    ap.add_argument("--tpu", action="store_true")
+    ap.add_argument("--gpu", action="store_true")
     args = ap.parse_args()
 
     from ekf_slam_tpu.data.synthetic import aliased_places

@@ -1,17 +1,17 @@
 """Quantify the bf16-P fast mode's accuracy at the HEADLINE operating
-point (VERDICT r2 weak #2): B=256, CAP=100, M=24, NHYP=64, FRAMES=16 —
+point: B=256, CAP=100, M=24, NHYP=64, FRAMES=16 —
 the exact bench.py scenario and key schedule.
 
 Three legs, run as separate processes (EKF_COV_PRECISION is read at
 ekf.py import, so precision must be fixed before the package loads):
 
-    python tools/measure_pstore_drift.py bf16   # fast mode (TPU): bf16-P + tensorfloat32 dots
-    python tools/measure_pstore_drift.py f32    # parity mode (TPU): f32-P + float32 dots
+    python tools/measure_pstore_drift.py bf16   # fast mode (GPU): bf16-P storage
+    python tools/measure_pstore_drift.py f32    # parity mode (GPU): f32-P storage
     python tools/measure_pstore_drift.py f64    # float64 oracle-dtype engine (CPU, B=4)
     python tools/measure_pstore_drift.py compare
 
 Each leg writes runs/r3a/drift_<mode>.npz (trajectories + ground truth).
-`compare` prints the accuracy table for docs/BENCH.md: per-mode mean
+`compare` prints the accuracy table: per-mode mean
 position error vs ground truth, and pairwise trajectory RMSE
 (bf16-vs-f32, each-vs-f64 on the shared first 4 instances — per-instance
 keys are the first 4 of the B=256 split, so the legs are comparable).

@@ -1,4 +1,5 @@
-"""Micro-benchmarks of the update's linear-algebra primitives on TPU."""
+"""Micro-benchmarks of the update's linear-algebra primitives on the
+default backend (the GPU where one is present)."""
 
 import os
 import sys

@@ -2,7 +2,8 @@
 
 Times each pipeline stage jitted+vmapped separately over the same batch, so
 the hot spot is attributable (predict / linearize / IC / RANSAC / update /
-mapman / init). Run on the TPU (default backend) or CPU.
+mapman / init). Runs on the default backend (the GPU where one is
+present) or CPU.
 """
 
 import os

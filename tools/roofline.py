@@ -1,32 +1,36 @@
-"""Memory-roofline arithmetic from a compiled TPU HLO dump.
+"""Memory- and compute-roofline arithmetic from a compiled HLO dump.
 
-VERDICT-r3 #4: turn "how much perf is left" from ablation folklore into
-arithmetic. The bench program is memory-bound (every measured win in
-docs/BENCH.md came from removing padded-bytes traffic, not FLOPs), so the
-ceiling is HBM bandwidth:
+The sim program is memory-bound in every form measured so far (the
+covariance passes dominate), so the first ceiling is HBM bandwidth:
 
-    steps/s ceiling = HBM_GB/s / (bytes moved per step)
+    steps/s ceiling = HBM bytes/s / (bytes moved per step)
 
-This tool parses a `compiled.as_text()` dump (tools/dump_hlo.py), finds
-the sequence-scan `while` loop (the per-frame step body — the bench
-program is vmap(run_sequence) = one while over FRAMES), and sums HBM
-traffic per iteration over the body's TOP-LEVEL instructions:
+This tool parses a `compiled.as_text()` dump (e.g. the hlo.txt
+tools/profile_sim.py writes), finds the sequence-scan `while` loop (the
+per-frame step body — the bench program is vmap(run_sequence) = one while
+over FRAMES), and sums memory traffic per iteration over the body's
+TOP-LEVEL instructions:
 
-    traffic(instr) = padded bytes written (its result)
-                   + padded bytes read   (its materialized operands)
+    traffic(instr) = bytes written (its result)
+                   + bytes read   (its materialized operands)
 
-Fusion-internal ops never materialize and are correctly excluded (unlike
-analyze_hlo.py, which ranks ALL ops to find layout blowups). Aliasing ops
+Fusion-internal ops never materialize and are excluded. Aliasing ops
 (tuple/get-tuple-element/bitcast/parameter) move no data and are skipped.
-Double-counted re-reads of one buffer by several consumers are REAL
-traffic on TPU (no general-purpose cache between HBM and VMEM).
+Library calls (cuBLAS/cuDNN `custom-call`s) read and write their operands
+like any kernel and are counted. Re-reads of one buffer by several
+consumers are counted each time (an upper bound where L2 would serve
+them). Shapes are counted at their logical size: the GPU does not pad
+arrays to tiles.
 
-    python tools/roofline.py runs/r4/hlo_f32.txt --batch 128 \
-        --steps-per-sec 10827 [--hbm-gbps 819] [--top 15]
+Peaks come from one table keyed by the JAX `device_kind` (PEAKS, with
+its source); an unknown device is an error, never a default:
 
-The achieved-GB/s statement assumes the while body dominates the program
-(true for FRAMES>=16: entry-computation setup runs once per FRAMES
-iterations) — the tool prints entry traffic too so you can check.
+    python tools/roofline.py step.hlo --device-kind "NVIDIA H100 80GB HBM3" \
+        --batch 256 --steps-per-sec <measured> [--flops] [--top 15]
+
+The achieved-bytes/s statement assumes the while body dominates the
+program (true for FRAMES>=16: entry-computation setup runs once per
+FRAMES iterations) — the tool prints entry traffic too so you can check.
 """
 
 import argparse
@@ -35,14 +39,36 @@ import re
 import sys
 
 sys.path.insert(0, os.path.dirname(__file__))
-from analyze_hlo import BYTES, SHAPE_RE, padded_elems, parse_tile  # noqa: E402
+from analyze_hlo import BYTES, SHAPE_RE, logical_bytes  # noqa: E402
 
-# Ops that alias or allocate nothing on TPU (no HBM traffic of their own).
+# Published peaks per device, keyed by jax.devices()[0].device_kind.
+# Source: NVIDIA H100 Tensor Core GPU data sheet, SXM5 part, dense rates
+# (no sparsity), at the full 700 W power limit; a card with a lower
+# power.limit cannot hold its top clock under matrix-heavy load.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_bytes_per_s": 3.35e12,
+        "bf16_flops": 989e12,
+        "tf32_flops": 495e12,
+        "fp32_flops": 67e12,          # outside the tensor cores
+        "source": "NVIDIA H100 data sheet, SXM5, dense",
+    },
+}
+
+
+def peaks_for(device_kind):
+    """The PEAKS row of a device; KeyError (never a default) otherwise."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device_kind "
+                       f"{device_kind!r}; add a row with its source to "
+                       f"tools/roofline.py PEAKS")
+    return PEAKS[device_kind]
+
+
+# Ops that alias or allocate nothing (no memory traffic of their own).
 NO_TRAFFIC = {
     "tuple", "get-tuple-element", "bitcast", "parameter", "constant",
-    "after-all", "partition-id", "replica-id", "custom-call",  # (most
-    # custom-calls in this program are tiny host callbacks; real ones
-    # would need a case-by-case look)
+    "after-all", "partition-id", "replica-id",
 }
 # Control-flow ops whose traffic lives in their bodies.
 CONTROL = {"while", "conditional", "call", "fusion_call"}
@@ -56,9 +82,9 @@ _OPC_AFTER_TYPE = re.compile(r"\s*([\w-]+)\(")
 def split_type_opcode(rhs):
     """(type_str, opcode) from an instruction RHS `TYPE opcode(args), ...`.
 
-    Tuple types are parenthesized and contain nested parens (`T(8,128)`)
-    and spaces, so a simple regex can't split them — scan to the balanced
-    close paren instead. Non-tuple type tokens never contain spaces."""
+    Tuple types are parenthesized and contain nested parens and spaces,
+    so a simple regex can't split them — scan to the balanced close paren
+    instead. Non-tuple type tokens never contain spaces."""
     if rhs.startswith("("):
         depth = 0
         for i, c in enumerate(rhs):
@@ -79,17 +105,13 @@ def split_type_opcode(rhs):
 
 
 def shape_bytes(type_str):
-    """Padded HBM bytes of every shape literal in `type_str` (tuple types
-    sum). Shapes placed in alternate memory space (`S(1)` in the layout =
-    VMEM after memory-space assignment) move no HBM traffic and count 0."""
+    """Logical bytes of every shape literal in `type_str` (tuple types
+    sum)."""
     total = 0
     for m in SHAPE_RE.finditer(type_str):
-        if "S(1)" in m.group(0):
-            continue
-        dt, dims_s, mtm_s, tile_s = m.groups()
+        dt, dims_s, _mtm_s = m.groups()
         dims = [int(x) for x in dims_s.split(",") if x] if dims_s else []
-        mtm = [int(x) for x in mtm_s.split(",") if x] if mtm_s else None
-        total += padded_elems(dims, mtm, parse_tile(tile_s)) * BYTES[dt]
+        total += logical_bytes(dt, dims)
     return total
 
 
@@ -192,18 +214,19 @@ def computation_traffic(instrs, result_bytes_of, comps):
 
 
 # ---------------------------------------------------------------------------
-# FLOPs side (VERDICT-r4 #4): estimate compute per while iteration so the
-# "compute-bound" half of a verdict is arithmetic too, not folklore.
+# FLOPs side: estimate compute per while iteration so the "compute-bound"
+# half of a verdict is arithmetic too.
 #
-# Unlike HBM traffic, FLOPs happen INSIDE fusions, so this walks every
+# Unlike memory traffic, FLOPs happen INSIDE fusions, so this walks every
 # computation reachable from the body (fusion/call bodies included) and
 # buckets work by execution unit:
-#   mxu_dot       dot/einsum contractions           (systolic array)
-#   mxu_conv      dense convolutions                (systolic array)
-#   grouped_conv  feature_group_count>1 convolutions — XLA lowers these
-#                 ~100x off MXU peak on TPU (docs/BENCH.md r2k), so they
-#                 get their own bucket and their own effective ceiling
-#   vpu           everything elementwise/reduce (1 FLOP per output elem;
+#   dot           dot/einsum contractions and cuBLAS gemm custom-calls
+#                 (tensor cores)
+#   conv          dense convolutions (cuDNN)
+#   grouped_conv  feature_group_count>1 convolutions — far off the
+#                 tensor-core peak, so they get their own bucket and
+#                 their own effective ceiling
+#   elementwise   everything elementwise/reduce (1 FLOP per output elem;
 #                 transcendentals are undercounted on purpose — the
 #                 verdicts only need the order of magnitude)
 # Nested `while` bodies are counted ONCE per outer iteration (their trip
@@ -264,7 +287,7 @@ NO_FLOPS = NO_TRAFFIC | {
 
 def _operand_names(rhs):
     """Operand names of an instruction RHS, in order. The type prefix can
-    itself contain parens (`T(8,128)` tiles, tuple types), so strip it
+    itself contain parens (tuple types), so strip it
     with the balanced-paren splitter before finding the argument list."""
     type_part, _ = split_type_opcode(rhs)
     tail = rhs[len(type_part):].split("(", 1)
@@ -303,17 +326,42 @@ def _dot_flops(rhs, result_dims):
     return 2 * lhs_elems * n
 
 
+def _gemm_flops(rhs, result_dims):
+    """FLOPs of a cuBLAS gemm custom-call: its dot dimension numbers live
+    in the backend_config JSON (`"lhs_contracting_dimensions":["1"]`)."""
+    ops = _operand_names(rhs)
+    if len(ops) < 2:
+        return 0
+    lhs = result_dims.get(ops[0], [])
+    rhs_d = result_dims.get(ops[1], [])
+
+    def dims(key):
+        m = re.search(r'"%s":\[([^\]]*)\]' % key, rhs)
+        return {int(x) for x in re.findall(r"\d+", m.group(1))} if m \
+            else set()
+    rc = dims("rhs_contracting_dimensions")
+    rb = dims("rhs_batch_dimensions")
+    lhs_elems = 1
+    for d in lhs:
+        lhs_elems *= d
+    n = 1
+    for i, d in enumerate(rhs_d):
+        if i not in rc and i not in rb:
+            n *= d
+    return 2 * lhs_elems * n
+
+
 def _conv_flops(rhs, out_dims, result_dims):
     """2 * out_elems * (kernel_elems / out_features), scaled by the
     fraction of kernel taps that land on REAL input elements. The HLO
     kernel's `i` dim is already per-group, so grouping is handled
     implicitly.
 
-    The tap fraction matters because the TPU backend expresses batched
-    matmuls as convolutions with `lhs_dilate=B size=B stride=B-1`
-    (dim_labels like 0bf_0io->0bf): the input is dilated B-fold with
-    zeros, so of the `size` taps per output only ceil(size/lhs_dilate)
-    touch data — counting the full window overcounts FLOPs by ~B x."""
+    The tap fraction matters for convolutions with `lhs_dilate=B size=B
+    stride=B-1` (a batched matmul written as a convolution): the input is
+    dilated B-fold with zeros, so of the `size` taps per output only
+    ceil(size/lhs_dilate) touch data — counting the full window
+    overcounts FLOPs by ~B x."""
     ops = _operand_names(rhs)
     if len(ops) < 2:
         return 0, 1
@@ -352,16 +400,19 @@ def computation_flops(comp_name, comps, result_dims, _seen_whiles=None):
     diagnostic keys."""
     if _seen_whiles is None:
         _seen_whiles = []
-    out = {"mxu_dot": 0, "mxu_conv": 0, "grouped_conv": 0, "vpu": 0}
+    out = {"dot": 0, "conv": 0, "grouped_conv": 0, "elementwise": 0}
     for name, opcode, _b, rhs, _root in comps.get(comp_name, []):
         type_part, _ = split_type_opcode(rhs)
         out_elems = shape_elems(type_part)
         if opcode == "dot":
-            out["mxu_dot"] += _dot_flops(rhs, result_dims)
-        elif opcode == "convolution":
+            out["dot"] += _dot_flops(rhs, result_dims)
+        elif opcode == "custom-call" and "__cublas" in rhs:
+            out["dot"] += _gemm_flops(rhs, result_dims)
+        elif opcode == "convolution" or (
+                opcode == "custom-call" and "__cudnn$conv" in rhs):
             f, groups = _conv_flops(rhs, shape_dims(type_part),
                                     result_dims)
-            out["grouped_conv" if groups > 1 else "mxu_conv"] += f
+            out["grouped_conv" if groups > 1 else "conv"] += f
         elif opcode in ("fusion", "call", "async-start"):
             cm = CALLS_RE.search(rhs)
             if cm and cm.group(1) in comps:
@@ -382,16 +433,16 @@ def computation_flops(comp_name, comps, result_dims, _seen_whiles=None):
             in_elems = 1
             for d in result_dims.get(ops[0], []) if ops else []:
                 in_elems *= d
-            out["vpu"] += in_elems
+            out["elementwise"] += in_elems
         elif opcode == "reduce-window":
             wm = _WINDOW_SIZE_RE.search(rhs)
             win = 1
             if wm:
                 for x in wm.group(1).split("x"):
                     win *= int(x)
-            out["vpu"] += out_elems * win
+            out["elementwise"] += out_elems * win
         elif opcode in ELEMWISE:
-            out["vpu"] += out_elems
+            out["elementwise"] += out_elems
         # NO_FLOPS and anything unrecognized: data movement, 0 math.
     out["nested_whiles"] = _seen_whiles
     return out
@@ -400,29 +451,28 @@ def computation_flops(comp_name, comps, result_dims, _seen_whiles=None):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("dump")
+    ap.add_argument("--device-kind", required=True,
+                    help="jax.devices()[0].device_kind of the run (a key "
+                         "of PEAKS)")
     ap.add_argument("--batch", type=int, required=True,
                     help="filter instances per while iteration (BENCH_BATCH"
                          " / BENCH_PIXB)")
     ap.add_argument("--steps-per-sec", type=float, default=0.0,
                     help="measured bench steps/s for the achieved-BW line")
-    ap.add_argument("--hbm-gbps", type=float, default=819.0,
-                    help="HBM bandwidth GB/s (v5e: 819)")
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--flops", action="store_true",
                     help="also estimate FLOPs per step and position the "
-                         "measured rate against the MXU/VPU peaks")
-    ap.add_argument("--mxu-tflops", type=float, default=197.0,
-                    help="MXU peak TFLOP/s (v5e bf16: 197; divide by the "
-                         "pass count for emulated-precision dots: tf32=3, "
-                         "highest=6)")
-    ap.add_argument("--vpu-tflops", type=float, default=7.0,
-                    help="VPU peak TFLOP/s order-of-magnitude (v5e: 8x128 "
-                         "lanes x ~4 ALUs x ~1.7 GHz ~= 7)")
+                         "measured rate against the per-unit peaks")
+    ap.add_argument("--dot-precision", choices=("bf16", "tf32", "fp32"),
+                    default="fp32",
+                    help="which peak bounds the dots: tensor-core bf16 or "
+                         "TF32, or fp32 outside the tensor cores")
     ap.add_argument("--grouped-eff", type=float, default=0.01,
-                    help="achievable fraction of MXU peak for grouped "
-                         "convolutions (measured ~100x off peak, "
-                         "docs/BENCH.md r2k)")
+                    help="achievable fraction of the dot peak for grouped "
+                         "convolutions")
     args = ap.parse_args()
+    pk = peaks_for(args.device_kind)
+    hbm = pk["hbm_bytes_per_s"]
 
     text = open(args.dump).read()
     comps = parse_computations(text)
@@ -452,23 +502,23 @@ def main():
     entry_bytes, _ = computation_traffic(entry, result_bytes, comps)
     per_step = body_bytes / args.batch
 
+    print(f"device: {args.device_kind} (peaks: {pk['source']})")
     print(f"while body: %{body_name} "
           f"({len(comps[body_name])} top-level instructions)")
-    print(f"HBM traffic per while iteration: {body_bytes / 1e6:.1f} MB "
+    print(f"memory traffic per while iteration: {body_bytes / 1e6:.1f} MB "
           f"(entry setup, once per program: {entry_bytes / 1e6:.1f} MB)")
     print(f"bytes per SLAM step (iteration / batch {args.batch}): "
           f"{per_step / 1e3:.1f} KB")
-    ceiling = args.hbm_gbps * 1e9 / per_step
-    print(f"memory-bound ceiling at {args.hbm_gbps:.0f} GB/s: "
+    ceiling = hbm / per_step
+    print(f"memory-bound ceiling at {hbm / 1e12:.2f} TB/s: "
           f"{ceiling:,.0f} steps/s")
     if args.steps_per_sec:
-        bw = args.steps_per_sec * per_step / 1e9
+        bw = args.steps_per_sec * per_step
         print(f"measured {args.steps_per_sec:,.0f} steps/s -> achieved "
-              f"{bw:.0f} GB/s = {100 * bw / args.hbm_gbps:.0f}% of HBM "
-              f"({100 * args.steps_per_sec / ceiling:.0f}% of the "
-              f"memory-bound ceiling)")
+              f"{bw / 1e9:.0f} GB/s = {100 * bw / hbm:.0f}% of the "
+              f"published bandwidth")
     print(f"\ntop {args.top} traffic contributors per iteration "
-          f"(read+write, padded):")
+          f"(read+write):")
     for b, name, opcode in rows[:args.top]:
         print(f"  {b / 1e6:9.2f} MB  {opcode:<22} %{name}")
 
@@ -491,11 +541,10 @@ def main():
                   f"ONCE each (dynamic trip counts): "
                   f"{sorted(set(nested))[:4]}")
         if args.steps_per_sec:
-            peaks = {"mxu_dot": args.mxu_tflops * 1e12,
-                     "mxu_conv": args.mxu_tflops * 1e12,
-                     "grouped_conv": args.mxu_tflops * 1e12 *
-                     args.grouped_eff,
-                     "vpu": args.vpu_tflops * 1e12}
+            dot_peak = pk[f"{args.dot_precision}_flops"]
+            peaks = {"dot": dot_peak, "conv": dot_peak,
+                     "grouped_conv": dot_peak * args.grouped_eff,
+                     "elementwise": pk["fp32_flops"]}
             print("achieved vs per-unit peaks at "
                   f"{args.steps_per_sec:,.0f} steps/s:")
             t_total = 0.0
